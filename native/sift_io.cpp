@@ -1,8 +1,8 @@
-// Native batch image loader for the TPU SIFT/SLAM framework.
+// Native batch image loader for the SIFT/SLAM framework.
 //
 // The reference implementation is pure JavaScript with no native
 // components (SURVEY.md §2); this framework's compute path is JAX/XLA on
-// TPU, and the runtime around it is native where that pays. Host-side
+// the accelerator, and the runtime around it is native where that pays. Host-side
 // image decode + grayscale conversion is the frame-ingest bottleneck for
 // sequence processing (PIL decodes one image per GIL at a time), so this
 // loader decodes PNG/PGM/PPM/BMP and converts RGB→gray with the EXACT

@@ -15,7 +15,7 @@ import numpy as np
 def make_problem(n_cams: int = 6, n_pts: int = 64, seed: int = 0):
     import jax.numpy as jnp
 
-    from sift_scale_space_extrema_detection_tpu.sfm import geometry as geo
+    from sift_slam.sfm import geometry as geo
 
     rng = np.random.default_rng(seed)
     pts = rng.uniform([-2, -2, 6], [2, 2, 12], size=(n_pts, 3))

@@ -4,8 +4,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from sift_scale_space_extrema_detection_tpu.sfm import geometry as geo
-from sift_scale_space_extrema_detection_tpu.sfm.ba import (
+from sift_slam.sfm import geometry as geo
+from sift_slam.sfm.ba import (
     BAState,
     Observations,
     bundle_adjust,
@@ -168,7 +168,7 @@ def test_ba_fixed_cameras_stay_fixed():
 
 def test_closed_form_jacobians_match_autodiff():
     """_obs_terms' hand-derived Jacobians == jacfwd of the residual."""
-    from sift_scale_space_extrema_detection_tpu.sfm.ba import (
+    from sift_slam.sfm.ba import (
         _obs_terms,
         _per_obs_residual,
     )

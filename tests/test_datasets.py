@@ -13,7 +13,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sift_scale_space_extrema_detection_tpu.data import (
+from sift_slam.data import (
     associate,
     load_kitti_sequence,
     load_tum_sequence,
@@ -24,8 +24,8 @@ from sift_scale_space_extrema_detection_tpu.data import (
     write_tum_sequence,
     write_tum_trajectory,
 )
-from sift_scale_space_extrema_detection_tpu.data.tum import intrinsics_for
-from sift_scale_space_extrema_detection_tpu.sfm import geometry as geo
+from sift_slam.data.tum import intrinsics_for
+from sift_slam.sfm import geometry as geo
 
 
 def _random_poses(rng, n):
@@ -137,8 +137,8 @@ def test_trajectory_file_roundtrip(tmp_path):
 @pytest.mark.slow
 def test_evaluate_cli_end_to_end(tmp_path, capsys):
     """Fixture TUM sequence → evaluate CLI → finite ATE + trajectory file."""
-    from sift_scale_space_extrema_detection_tpu import evaluate as ev
-    from sift_scale_space_extrema_detection_tpu.utils.synthetic import (
+    from sift_slam import evaluate as ev
+    from sift_slam.utils.synthetic import (
         render_blob_image,
         textured_blob_field,
     )
@@ -182,20 +182,20 @@ def test_evaluate_cli_end_to_end(tmp_path, capsys):
     assert len(ts_read) == n
 
 
-def test_pad_to_tpu_friendly_kitti_dims():
+def test_pad_to_aligned_kitti_dims():
     """KITTI-sized frames pad to aligned dims; blur over the original
     area is unchanged (edge replication == the reference's
     clamp-to-edge border rule, reference/src/sift.js:116-119)."""
-    from sift_scale_space_extrema_detection_tpu.core.image import (
-        pad_to_tpu_friendly,
+    from sift_slam.core.image import (
+        pad_to_aligned,
     )
-    from sift_scale_space_extrema_detection_tpu.ops.gaussian import (
+    from sift_slam.ops.gaussian import (
         blur_separable,
     )
 
     rng = np.random.default_rng(0)
     imgs = rng.random((2, 376, 1241))
-    padded = pad_to_tpu_friendly(imgs)
+    padded = pad_to_aligned(imgs)
     assert padded.shape == (2, 384, 1280)
     # Every plane of the first four octaves (2x upsampled base) is
     # 128-divisible -> the packed-selection fast path applies.
@@ -212,31 +212,31 @@ def test_pad_to_tpu_friendly_kitti_dims():
     small = imgs[0, :40, :37]
     blurred = np.asarray(blur_separable(jnp.asarray(small), 1.3))
     blurred_pad = np.asarray(
-        blur_separable(jnp.asarray(pad_to_tpu_friendly(small, 16, 16)), 1.3)
+        blur_separable(jnp.asarray(pad_to_aligned(small, 16, 16)), 1.3)
     )
     np.testing.assert_allclose(
         blurred_pad[:40, :37], blurred, rtol=0, atol=1e-12
     )
     # Aligned input is returned untouched (no copy, no new array).
     aligned = rng.random((64, 128))
-    assert pad_to_tpu_friendly(aligned) is aligned
+    assert pad_to_aligned(aligned) is aligned
 
 
 @pytest.mark.slow
 def test_evaluate_cli_kitti_end_to_end(tmp_path, capsys):
     """Fixture KITTI sequence (misaligned dims) → evaluate CLI → ATE.
 
-    The frame size (310x110) is deliberately TPU-unfriendly so the CLI's
+    The frame size (310x110) is deliberately unaligned so the CLI's
     edge-padding path (→ 320x128) is exercised end to end: decode → pad
     → SLAM → Umeyama ATE against the poses/NN.txt ground truth. Unlike
     the TUM fixture, KITTI ships its calibration, so the pipeline runs
     with the true K.
     """
-    from sift_scale_space_extrema_detection_tpu import evaluate as ev
-    from sift_scale_space_extrema_detection_tpu.data.kitti import (
+    from sift_slam import evaluate as ev
+    from sift_slam.data.kitti import (
         write_kitti_sequence,
     )
-    from sift_scale_space_extrema_detection_tpu.utils.synthetic import (
+    from sift_slam.utils.synthetic import (
         render_blob_image,
         textured_blob_field,
     )

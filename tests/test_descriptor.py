@@ -10,11 +10,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sift_scale_space_extrema_detection_tpu import (
+from sift_slam import (
     SiftConfig,
     detect_and_describe_jit,
 )
-from sift_scale_space_extrema_detection_tpu.ops.descriptor import (
+from sift_slam.ops.descriptor import (
     _extract_peaks,
     _smooth_circular,
 )
@@ -147,7 +147,7 @@ def test_compact_describe_matches_per_octave(test_image):
     """
     import dataclasses
 
-    from sift_scale_space_extrema_detection_tpu.models.frontend import (
+    from sift_slam.models.frontend import (
         detect_and_describe,
     )
 
@@ -170,7 +170,7 @@ def test_upright_mode(test_image):
     """Upright: one θ=0 descriptor per unique keypoint position."""
     import dataclasses
 
-    from sift_scale_space_extrema_detection_tpu.models.frontend import (
+    from sift_slam.models.frontend import (
         detect_and_describe,
     )
 

@@ -31,7 +31,7 @@ cv2 = pytest.importorskip("cv2")
 
 import jax.numpy as jnp
 
-from sift_scale_space_extrema_detection_tpu import (
+from sift_slam import (
     SiftConfig,
     detect_and_describe_jit,
     match_descriptors,
@@ -147,7 +147,7 @@ def test_recall_floor_over_warp_grid():
 
     import cv2 as _cv2
 
-    from sift_scale_space_extrema_detection_tpu import (
+    from sift_slam import (
         detect_and_describe_jit as _dd,
     )
 

@@ -1,7 +1,7 @@
 """Distributed execution tests on the 8-virtual-device CPU mesh.
 
 The conftest forces ``xla_force_host_platform_device_count=8`` so these
-tests exercise real shard_map + psum lowering without TPU hardware
+tests exercise real shard_map + psum lowering without accelerator hardware
 (SURVEY.md §4 fake-cluster strategy).
 """
 
@@ -10,16 +10,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from sift_scale_space_extrema_detection_tpu import SiftConfig
-from sift_scale_space_extrema_detection_tpu.models.frontend import (
+from sift_slam import SiftConfig
+from sift_slam.models.frontend import (
     detect_and_describe_batched,
 )
-from sift_scale_space_extrema_detection_tpu.parallel import (
+from sift_slam.parallel import (
     detect_and_describe_data_parallel,
     distributed_bundle_adjust,
     make_mesh,
 )
-from sift_scale_space_extrema_detection_tpu.sfm.ba import bundle_adjust
+from sift_slam.sfm.ba import bundle_adjust
 
 from test_ba import make_scene, perturb, rms_residual
 
@@ -130,10 +130,10 @@ def test_data_parallel_frontend_matches_single(mesh):
 
 
 def test_sharded_keyframe_matching_matches_vmap(mesh):
-    from sift_scale_space_extrema_detection_tpu.ops.matching import (
+    from sift_slam.ops.matching import (
         match_descriptors,
     )
-    from sift_scale_space_extrema_detection_tpu.parallel import (
+    from sift_slam.parallel import (
         match_against_keyframes_sharded,
     )
 

@@ -13,7 +13,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sift_scale_space_extrema_detection_tpu.ops.extrema import (
+from sift_slam.ops.extrema import (
     _first_k_candidates_packed,
     first_k_set_indices,
     unpack_mask_codes,

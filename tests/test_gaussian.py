@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sift_scale_space_extrema_detection_tpu.ops import gaussian
-from sift_scale_space_extrema_detection_tpu.utils import oracle
+from sift_slam.ops import gaussian
+from sift_slam.utils import oracle
 
 
 SIGMAS = [0.7, 0.9375, 1.2263, 2.0, 3.2, 7.5]

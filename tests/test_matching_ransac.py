@@ -4,15 +4,15 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from sift_scale_space_extrema_detection_tpu.ops.matching import (
+from sift_slam.ops.matching import (
     descriptor_distances,
     match_descriptors,
 )
-from sift_scale_space_extrema_detection_tpu.ops.ransac import (
+from sift_slam.ops.ransac import (
     estimate_essential_ransac,
     sampson_error,
 )
-from sift_scale_space_extrema_detection_tpu.sfm import geometry as geo
+from sift_slam.sfm import geometry as geo
 
 
 # ---------------------------------------------------------------------------
@@ -227,7 +227,7 @@ def test_ransac_too_few_valid_reports_zero_inliers():
     pose with a plausible-looking inlier set (round-2 review finding)."""
     import jax
 
-    from sift_scale_space_extrema_detection_tpu.ops.ransac import (
+    from sift_slam.ops.ransac import (
         estimate_essential_ransac,
     )
 
@@ -246,10 +246,10 @@ def test_decompose_essential_batched_proper_rotations():
     """decompose_essential advertises (..., 3, 3) support; the
     determinant sign fix must broadcast over a hypothesis batch
     (round-2 review finding: it only worked unbatched)."""
-    from sift_scale_space_extrema_detection_tpu.ops.ransac import (
+    from sift_slam.ops.ransac import (
         decompose_essential,
     )
-    from sift_scale_space_extrema_detection_tpu.sfm.geometry import hat, so3_exp
+    from sift_slam.sfm.geometry import hat, so3_exp
 
     rng = np.random.default_rng(12)
     e_batch = []

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from sift_scale_space_extrema_detection_tpu.core import native_io
-from sift_scale_space_extrema_detection_tpu.core.image import rgb_to_gray
+from sift_slam.core import native_io
+from sift_slam.core.image import rgb_to_gray
 
 
 pytestmark = pytest.mark.skipif(

@@ -13,12 +13,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sift_scale_space_extrema_detection_tpu import SiftConfig
-from sift_scale_space_extrema_detection_tpu.core.types import (
+from sift_slam import SiftConfig
+from sift_slam.core.types import (
     ACCEPTED,
     REJECT_REASON_NAMES,
 )
-from sift_scale_space_extrema_detection_tpu.models import frontend
+from sift_slam.models import frontend
 
 
 CFG = SiftConfig()
@@ -155,7 +155,7 @@ def test_decision_margins_robust(oracle_result):
     keypoint comparison a sound bit-parity argument."""
     import math
 
-    from sift_scale_space_extrema_detection_tpu.utils import oracle as orc
+    from sift_slam.utils import oracle as orc
 
     thr = CFG.contrast_threshold_scaled
     edge_thr = CFG.edge_threshold
@@ -194,7 +194,7 @@ def test_low_contrast_positions_parity(jax_dog, oracle_result):
     """Low-contrast pre-filter rejects match the reference's first-class
     records one-to-one (positions, values, row-major order;
     reference/src/sift.js:296-307, background.js:408-421)."""
-    from sift_scale_space_extrema_detection_tpu.ops.extrema import (
+    from sift_slam.ops.extrema import (
         find_low_contrast_extrema,
     )
 
@@ -224,7 +224,7 @@ def test_per_keypoint_decision_parity(jax_dog, jax_detection, oracle_result):
     """Every candidate's accept/reject FATE matches the oracle's decision
     log one-to-one, in the reference's iteration order (SURVEY.md §5.5
     'diff rejection reasons one-to-one')."""
-    from sift_scale_space_extrema_detection_tpu.ops.extrema import (
+    from sift_slam.ops.extrema import (
         compact_extrema,
     )
 
@@ -272,12 +272,13 @@ def test_per_keypoint_decision_parity(jax_dog, jax_detection, oracle_result):
 def test_unified_refine_matches_per_octave_path():
     """cfg.unified_refine: one cross-octave refinement pass must equal
     the per-octave path bit-for-bit (same elementwise ops per slot,
-    same slot order) — on both the XLA scan path and the fused
-    mask path (interpret mode)."""
+    same slot order) — through ``detect`` on a square image and through
+    ``detect_from_dog`` on a precomputed XLA DoG of an unaligned one."""
     import dataclasses
 
-    from sift_scale_space_extrema_detection_tpu.models.frontend import (
-        build_pyramid_fused,
+    from sift_slam.models.frontend import (
+        build_dog,
+        build_scale_space,
         detect,
         detect_from_dog,
     )
@@ -304,11 +305,10 @@ def test_unified_refine_matches_per_octave_path():
             np.asarray(getattr(kp_a, f)), np.asarray(getattr(kp_b, f)), f
         )
 
-    _, dogs, masks = build_pyramid_fused(
-        img, cfg, emit_scales=False, emit_masks=True, interpret=True
-    )
-    kp_c, _ = detect_from_dog(dogs, cfg, masks)
-    kp_d, _ = detect_from_dog(dogs, cfg_u, masks)
+    dogs = build_dog(build_scale_space(img[:, :50], cfg, "separable"))
+    kp_c, _ = detect_from_dog(dogs, cfg)
+    kp_d, _ = detect_from_dog(dogs, cfg_u)
+    assert np.asarray(kp_c.valid).sum() > 0
     for f in ("abs_x", "abs_y", "abs_sigma", "valid", "reject_reason"):
         np.testing.assert_array_equal(
             np.asarray(getattr(kp_c, f)), np.asarray(getattr(kp_d, f)), f

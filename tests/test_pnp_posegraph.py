@@ -3,9 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from sift_scale_space_extrema_detection_tpu.sfm import geometry as geo
-from sift_scale_space_extrema_detection_tpu.sfm.pnp import pnp_dlt, solve_pnp
-from sift_scale_space_extrema_detection_tpu.sfm.pose_graph import (
+from sift_slam.sfm import geometry as geo
+from sift_slam.sfm.pnp import pnp_dlt, solve_pnp
+from sift_slam.sfm.pose_graph import (
     PoseGraphEdges,
     optimize_pose_graph,
     pose_graph_residuals,

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from sift_scale_space_extrema_detection_tpu.ops import resize
-from sift_scale_space_extrema_detection_tpu.utils import oracle
+from sift_slam.ops import resize
+from sift_slam.utils import oracle
 
 
 def test_upsample2x_matches_oracle(test_image):

@@ -4,23 +4,23 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sift_scale_space_extrema_detection_tpu.models.slam import (
+from sift_slam.models.slam import (
     SlamConfig,
     evaluate_ate,
     measure_loop_edge,
     run_slam,
 )
-from sift_scale_space_extrema_detection_tpu.sfm.evaluate import (
+from sift_slam.sfm.evaluate import (
     absolute_trajectory_error,
     umeyama_alignment,
 )
-from sift_scale_space_extrema_detection_tpu.utils.synthetic import orbit_sequence
+from sift_slam.utils.synthetic import orbit_sequence
 
 
 def test_umeyama_recovers_similarity():
     rng = np.random.default_rng(0)
     src = rng.normal(size=(40, 3))
-    from sift_scale_space_extrema_detection_tpu.sfm import geometry as geo
+    from sift_slam.sfm import geometry as geo
 
     r = np.asarray(geo.so3_exp(jnp.asarray([0.3, -0.5, 0.2])))
     s, t = 2.5, np.array([1.0, -2.0, 0.5])
@@ -169,7 +169,7 @@ def test_slam_distributed_mesh_matches_single_device():
     mesh) reproduces the single-device trajectory (config[4])."""
     import jax
 
-    from sift_scale_space_extrema_detection_tpu.parallel import make_mesh
+    from sift_slam.parallel import make_mesh
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
@@ -196,12 +196,12 @@ def test_rpe_protocol_properties():
     to a global similarity transform of the estimate (relative motions
     are unchanged by a world-frame gauge; the Umeyama scale handles the
     monocular scale factor)."""
-    from sift_scale_space_extrema_detection_tpu.sfm.evaluate import (
+    from sift_slam.sfm.evaluate import (
         camera_centers,
         relative_pose_error,
         relative_rotation_error,
     )
-    from sift_scale_space_extrema_detection_tpu.sfm import geometry as geo
+    from sift_slam.sfm import geometry as geo
 
     rng = np.random.default_rng(8)
     seq = orbit_sequence(rng, num_frames=10, num_landmarks=30)
@@ -229,7 +229,7 @@ def test_pose_jump_gate_rejects_catastrophic_frame():
     ``SlamConfig.pose_jump_gate`` — its pose held, its observations
     kept out of BA — while ``pose_jump_gate=0`` reproduces the
     unguarded behavior (the estimated center lands far away)."""
-    from sift_scale_space_extrema_detection_tpu.sfm import geometry as geo
+    from sift_slam.sfm import geometry as geo
 
     rng = np.random.default_rng(5)
     seq = orbit_sequence(rng, num_frames=16, num_landmarks=250, noise_px=0.2)
@@ -275,11 +275,11 @@ def test_loop_closure_association_merges_tracks():
     reappeared keypoints into the original tracks (verified by
     essential RANSAC), giving cross-gap co-observations — without it,
     consecutive+window matching structurally cannot."""
-    from sift_scale_space_extrema_detection_tpu import SiftConfig
-    from sift_scale_space_extrema_detection_tpu.models.slam import (
+    from sift_slam import SiftConfig
+    from sift_slam.models.slam import (
         build_tracks_from_images,
     )
-    from sift_scale_space_extrema_detection_tpu.ops.gaussian import (
+    from sift_slam.ops.gaussian import (
         blur_separable,
     )
 
@@ -313,11 +313,11 @@ def test_loop_closure_sketch_prune_still_merges():
     only 2 of the 8 eligible candidates per query get full descriptor
     matching — the pooled-sketch similarity must rank frame 0 into
     that top-2 for query 10, or the merge is lost."""
-    from sift_scale_space_extrema_detection_tpu import SiftConfig
-    from sift_scale_space_extrema_detection_tpu.models.slam import (
+    from sift_slam import SiftConfig
+    from sift_slam.models.slam import (
         build_tracks_from_images,
     )
-    from sift_scale_space_extrema_detection_tpu.ops.gaussian import (
+    from sift_slam.ops.gaussian import (
         blur_separable,
     )
 

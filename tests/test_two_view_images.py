@@ -11,14 +11,14 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from sift_scale_space_extrema_detection_tpu import (
+from sift_slam import (
     SiftConfig,
     detect_and_describe,
     estimate_essential_ransac,
     match_descriptors,
 )
-from sift_scale_space_extrema_detection_tpu.sfm import geometry as geo
-from sift_scale_space_extrema_detection_tpu.utils.synthetic import (
+from sift_slam.sfm import geometry as geo
+from sift_slam.utils.synthetic import (
     render_blob_image,
     textured_blob_field,
 )

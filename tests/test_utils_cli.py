@@ -7,20 +7,20 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from sift_scale_space_extrema_detection_tpu import SiftConfig, detect
-from sift_scale_space_extrema_detection_tpu.sfm.ba import BAState
-from sift_scale_space_extrema_detection_tpu.utils.checkpoint import (
+from sift_slam import SiftConfig, detect
+from sift_slam.sfm.ba import BAState
+from sift_slam.utils.checkpoint import (
     checkpoint_exists,
     remove_checkpoint,
     restore_checkpoint,
     restore_checkpoint_flat,
     save_checkpoint,
 )
-from sift_scale_space_extrema_detection_tpu.utils.metrics import (
+from sift_slam.utils.metrics import (
     StageTimer,
     keypoint_stats,
 )
-from sift_scale_space_extrema_detection_tpu.utils import visualize as vis
+from sift_slam.utils import visualize as vis
 
 
 def test_checkpoint_roundtrip(tmp_path):
@@ -82,7 +82,7 @@ def test_gallery_and_overlay(test_image):
 def test_cli_end_to_end(tmp_path, test_image):
     from PIL import Image
 
-    from sift_scale_space_extrema_detection_tpu.cli import main
+    from sift_slam.cli import main
 
     img_path = str(tmp_path / "in.png")
     Image.fromarray((test_image * 255).astype(np.uint8)).save(img_path)
@@ -105,7 +105,7 @@ def test_cli_end_to_end(tmp_path, test_image):
 def test_checked_catches_nan():
     import pytest as _pytest
 
-    from sift_scale_space_extrema_detection_tpu.utils.debug import checked
+    from sift_slam.utils.debug import checked
 
     def bad(x):
         return jnp.log(x)  # NaN for negative input
@@ -119,7 +119,7 @@ def test_checked_catches_nan():
 def test_assert_finite():
     import pytest as _pytest
 
-    from sift_scale_space_extrema_detection_tpu.utils.debug import (
+    from sift_slam.utils.debug import (
         assert_finite,
     )
 
@@ -135,7 +135,7 @@ def test_quality_preset_detects_denser():
     import jax.numpy as jnp
     import numpy as np
 
-    from sift_scale_space_extrema_detection_tpu import (
+    from sift_slam import (
         SiftConfig,
         detect_and_describe_jit,
     )

@@ -3,14 +3,14 @@
 import numpy as np
 import jax.numpy as jnp
 
-from sift_scale_space_extrema_detection_tpu import SiftConfig
-from sift_scale_space_extrema_detection_tpu.models.slam import (
+from sift_slam import SiftConfig
+from sift_slam.models.slam import (
     SlamConfig,
     evaluate_ate,
     run_slam_from_images,
 )
-from sift_scale_space_extrema_detection_tpu.sfm import geometry as geo
-from sift_scale_space_extrema_detection_tpu.utils.synthetic import (
+from sift_slam.sfm import geometry as geo
+from sift_slam.utils.synthetic import (
     render_blob_image,
     textured_blob_field,
 )
@@ -65,10 +65,10 @@ def test_window_reassociation_reacquires_lost_tracks():
     pixel offsets; correct wiring gives every shared track the same
     (dx, dy) offset.
     """
-    from sift_scale_space_extrema_detection_tpu.models.slam import (
+    from sift_slam.models.slam import (
         build_tracks_from_images,
     )
-    from sift_scale_space_extrema_detection_tpu.ops.gaussian import (
+    from sift_slam.ops.gaussian import (
         blur_separable,
     )
 
@@ -105,10 +105,10 @@ def test_build_tracks_short_sequence_on_mesh_matches_single_device():
     import jax
     import pytest
 
-    from sift_scale_space_extrema_detection_tpu.models.slam import (
+    from sift_slam.models.slam import (
         build_tracks_from_images,
     )
-    from sift_scale_space_extrema_detection_tpu.parallel import make_mesh
+    from sift_slam.parallel import make_mesh
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
@@ -132,7 +132,7 @@ def test_relocalization_after_blackout_via_loop_association():
     with ``loop_stride`` their keypoints merge into the original
     tracks, the windowed PnP localizes them against the bootstrap-era
     map, and the poses land near the true (start-adjacent) location."""
-    from sift_scale_space_extrema_detection_tpu.models.slam import (
+    from sift_slam.models.slam import (
         build_tracks_from_images,
         run_slam,
     )
@@ -190,7 +190,7 @@ def test_streaming_session_matches_batch():
     sequence (same matcher/verifier dispatches, same backend driven
     through checkpoint/resume), emitting a provisional update per
     filled window."""
-    from sift_scale_space_extrema_detection_tpu.models.streaming import (
+    from sift_slam.models.streaming import (
         SlamSession,
     )
 
